@@ -1,12 +1,12 @@
-/* h10x_loader.c — native FASTQ → packed-read loader for hash10x-tpu.
+/* h10x_loader.c — native FASTQ → packed-read loader for hash10x-jax.
  *
- * The host-side data-loader must keep TPU chips fed (SURVEY.md §4.5: host ingest
+ * The host-side data-loader must keep the device fed (SURVEY.md §4.5: host ingest
  * overlaps device compute); this C path fuses FASTQ record parsing, base→2-bit
  * packing, and 16bp GEM barcode extraction into one OpenMP-parallel pass over the
  * mmap'd buffer — the native equivalent of the reference's readseq layer
  * (SURVEY.md §3.1 #17) plus the FASTQ→FQB converter (#3).
  *
- * Exposed via ctypes (hash10x_tpu/io/native_loader.py); falls back to the numpy
+ * Exposed via ctypes (hash10x_jax/io/native_loader.py); falls back to the numpy
  * parser when no compiler is available.
  *
  * Layout contract (must match io/fqb.py):

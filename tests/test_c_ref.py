@@ -6,9 +6,7 @@
 binary itself is unobtainable (SURVEY.md §0 — empty mount), so this pins the
 framework's full pipeline against an independent scalar implementation of
 its spec: counts, cluster assignments, and the report must match BYTE-FOR-
-BYTE (VERDICT r4 item 3: the stand-in previously covered config-#1 counting
-only, so vs_baseline said nothing about the phases that dominate real
-lanes)."""
+BYTE."""
 
 import io
 import os
@@ -17,10 +15,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from hash10x_tpu.hashspec import HashSpec
-from hash10x_tpu.engine import Engine, EngineConfig
-from hash10x_tpu.io.fqb import Fqb
-from hash10x_tpu.core.encode import pack_2bit
+from hash10x_jax.hashspec import HashSpec
+from hash10x_jax.engine import Engine, EngineConfig
+from hash10x_jax.io.fqb import Fqb
+from hash10x_jax.core.encode import pack_2bit
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "native", "c_ref",
                    "hash10x_ref.c")
@@ -87,7 +85,7 @@ def test_c_ref_full_pipeline_bit_equal(rng, c_ref_exe, tmp_path):
         m = int(np.fromfile(f, np.uint64, 1)[0])
         c_hashes = np.fromfile(f, np.uint64, m)
         c_counts = np.fromfile(f, np.uint32, m)
-    import hash10x_tpu.table.sorted_table as st
+    import hash10x_jax.table.sorted_table as st
     e_hashes, e_counts = st.compact(eng._flushed())
     np.testing.assert_array_equal(np.asarray(e_hashes), c_hashes)
     np.testing.assert_array_equal(np.asarray(e_counts), c_counts)
@@ -130,7 +128,7 @@ def test_c_ref_occurrence_mode_still_matches(rng, c_ref_exe, tmp_path):
                        batch_reads=512)
     eng = Engine(cfg, log=None)
     eng.count(fqb)
-    import hash10x_tpu.table.sorted_table as st
+    import hash10x_jax.table.sorted_table as st
     e_hashes, e_counts = st.compact(eng._flushed())
     np.testing.assert_array_equal(np.asarray(e_hashes), c_hashes)
     np.testing.assert_array_equal(np.asarray(e_counts), c_counts)

@@ -1,17 +1,17 @@
 """The .hash checkpoint must carry the FULL analysis state (count table,
 retained band, incidence, clusters, split) so --readHash -> --clusterReport
 works with no reads on disk (SURVEY.md §3.1 #11, §4.2 resume workflow), and
-load() must REPLACE state, not sum onto it (round-1 ADVICE finding)."""
+load() must REPLACE state, not sum onto it."""
 
 import io as _io
 
 import numpy as np
 
-from hash10x_tpu.cli.main import main as cli_main
-from hash10x_tpu.engine import Engine, EngineConfig
-from hash10x_tpu.hashspec import HashSpec
-from hash10x_tpu.io import fqb as FB
-from hash10x_tpu.io.sim import SimConfig, simulate
+from hash10x_jax.cli.main import main as cli_main
+from hash10x_jax.engine import Engine, EngineConfig
+from hash10x_jax.hashspec import HashSpec
+from hash10x_jax.io import fqb as FB
+from hash10x_jax.io.sim import SimConfig, simulate
 
 
 def _sim_fqb(**kw):
@@ -68,7 +68,7 @@ def test_load_replaces_not_merges(tmp_path):
     # (a merging load would double them)
     eng.count(fqb)
     eng.load(p)
-    import hash10x_tpu.table.sorted_table as st
+    import hash10x_jax.table.sorted_table as st
     h, c = st.compact(eng._flushed())
     eng3 = Engine(cfg, log=None)
     eng3.load(p)

@@ -6,12 +6,12 @@ import io
 import numpy as np
 import pytest
 
-from hash10x_tpu.cli.main import main
-from hash10x_tpu.core.encode import codes_to_ascii
-from hash10x_tpu.crib.crib import build_crib, genome_kmer_counts, HOM, HET1, HET2, MUL, ERR
-from hash10x_tpu.hashspec import HashSpec
-from hash10x_tpu.io.sim import SimConfig, simulate
-from hash10x_tpu.oracle import seqhash_ref as O
+from hash10x_jax.cli.main import main
+from hash10x_jax.core.encode import codes_to_ascii
+from hash10x_jax.crib.crib import build_crib, genome_kmer_counts, HOM, HET1, HET2, MUL, ERR
+from hash10x_jax.hashspec import HashSpec
+from hash10x_jax.io.sim import SimConfig, simulate
+from hash10x_jax.oracle import seqhash_ref as O
 
 SIM = ("genome_len=200000,n_barcodes=150,molecules_per_barcode=2,"
        "molecule_len=4000,reads_per_molecule=30,read_len=120,seed=3")
@@ -134,7 +134,7 @@ def test_cli_crib_pipeline(tmp_path, rng):
     fa1, fa2 = tmp_path / "h1.fa", tmp_path / "h2.fa"
     write_fasta(fa1, [codes_to_ascii(sim.genome)])
     write_fasta(fa2, [codes_to_ascii(sim.genome_hap1)])
-    import hash10x_tpu.io.fqb as FB
+    import hash10x_jax.io.fqb as FB
     fqb_path = str(tmp_path / "lane.fqb")
     FB.save_fqb(fqb_path, FB.from_read_batch(sim.reads))
     rc, out, err = run(["-k", "17", "-w", "7", "-B", "20",
@@ -227,9 +227,9 @@ def test_c_reference_differential(tmp_path):
     c_h = np.frombuffer(raw[8:8 + 8 * m], np.uint64)
     c_c = np.frombuffer(raw[8 + 8 * m:], np.uint32)
 
-    from hash10x_tpu.hashspec import HashSpec, U64MAX
-    from hash10x_tpu.core import seqhash_jnp as J
-    from hash10x_tpu.table import sorted_table as ST
+    from hash10x_jax.hashspec import HashSpec, U64MAX
+    from hash10x_jax.core import seqhash_jnp as J
+    from hash10x_jax.table import sorted_table as ST
     spec = HashSpec(k=21, w=11, seed=17)
     h, _, e = J.sketch(spec, reads, np.full(n, L, np.int32), mode="minimizer")
     flat = np.where(np.asarray(e), np.asarray(h), U64MAX).reshape(-1)
@@ -246,7 +246,7 @@ def test_crib_contiguity_spans(tmp_path, rng):
                              reads_per_molecule=40, read_len=120, seed=6))
     fa = tmp_path / "g.fa"
     write_fasta(fa, [codes_to_ascii(sim.genome)])
-    import hash10x_tpu.io.fqb as FB
+    import hash10x_jax.io.fqb as FB
     fqb_path = str(tmp_path / "lane.fqb")
     FB.save_fqb(fqb_path, FB.from_read_batch(sim.reads))
     rc, out, err = run(["-k", "17", "-w", "7", "-B", "20",
@@ -289,8 +289,8 @@ def test_crib_chrom_and_boundary_straddling_span():
     whose k-mers straddle a record boundary must NOT report the inflated
     concatenated-coordinate span (SURVEY.md §3.1 #10: labels + chrom/pos)."""
     import io
-    from hash10x_tpu.crib.crib import Crib, crib_report, HET1
-    from hash10x_tpu.table.incidence import build_incidence
+    from hash10x_jax.crib.crib import Crib, crib_report, HET1
+    from hash10x_jax.table.incidence import build_incidence
 
     # 16 retained k-mers in one barcode, one cluster: 8 land at the END of
     # chr1 (concatenated pos 100..107), 8 at the START of chr2 (200..207)

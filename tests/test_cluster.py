@@ -6,13 +6,13 @@ import io as _io
 import numpy as np
 import pytest
 
-from hash10x_tpu.hashspec import HashSpec
-from hash10x_tpu.cluster import cooccur
-from hash10x_tpu.engine import Engine, EngineConfig
-from hash10x_tpu.io import fqb as FB
-from hash10x_tpu.io.sim import SimConfig, simulate
-from hash10x_tpu.oracle import cluster_ref as CO
-from hash10x_tpu.table.incidence import build_incidence
+from hash10x_jax.hashspec import HashSpec
+from hash10x_jax.cluster import cooccur
+from hash10x_jax.engine import Engine, EngineConfig
+from hash10x_jax.io import fqb as FB
+from hash10x_jax.io.sim import SimConfig, simulate
+from hash10x_jax.oracle import cluster_ref as CO
+from hash10x_jax.table.incidence import build_incidence
 
 
 def random_incidence(rng, n_kmers=60, n_codes=30, density=0.15):
@@ -200,7 +200,7 @@ def test_oversized_barcode_sharded_counts_exact():
                                   count_mode="barcodes", n_shards=2),
                      log=None)
     sharded.count(fqb)
-    import hash10x_tpu.table.sorted_table as _st
+    import hash10x_jax.table.sorted_table as _st
     hs, cs = _st.compact(single._flushed())
     hh, ch = _st.compact(sharded._flushed())
     assert hs.tolist() == hh.tolist() and cs.tolist() == ch.tolist()

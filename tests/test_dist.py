@@ -5,12 +5,12 @@ import numpy as np
 import pytest
 import jax
 
-from hash10x_tpu.hashspec import HashSpec, U64MAX
-from hash10x_tpu.dist import sharded as D
-from hash10x_tpu.table import oa_table as T
-from hash10x_tpu.core import seqhash_jnp as J
-from hash10x_tpu.io.sim import SimConfig, simulate
-from hash10x_tpu.io import fqb as FB
+from hash10x_jax.hashspec import HashSpec, U64MAX
+from hash10x_jax.dist import sharded as D
+from hash10x_jax.table import oa_table as T
+from hash10x_jax.core import seqhash_jnp as J
+from hash10x_jax.io.sim import SimConfig, simulate
+from hash10x_jax.io import fqb as FB
 
 from conftest import random_codes
 
@@ -121,7 +121,7 @@ def test_lane_overflow_is_counted():
 
 # ---- sorted-table sharded path (production count path) ----
 
-from hash10x_tpu.dist import sharded_sorted as DS
+from hash10x_jax.dist import sharded_sorted as DS
 
 
 @pytest.mark.parametrize("n_mesh", [1, 2, 8])
@@ -181,9 +181,9 @@ def test_snapshot_restore_mesh_portable(tmp_path):
 def test_engine_sharded_equals_single():
     """Engine(n_shards=8) == Engine(n_shards=1) end-to-end (histogram,
     retained set, cluster labels)."""
-    from hash10x_tpu.engine import Engine, EngineConfig
-    from hash10x_tpu.io import fqb as FB
-    from hash10x_tpu.io.sim import SimConfig, simulate
+    from hash10x_jax.engine import Engine, EngineConfig
+    from hash10x_jax.io import fqb as FB
+    from hash10x_jax.io.sim import SimConfig, simulate
     sim = simulate(SimConfig(genome_len=60_000, n_barcodes=24,
                              molecules_per_barcode=2, molecule_len=5000,
                              reads_per_molecule=30, read_len=120, seed=8))
@@ -216,9 +216,9 @@ def test_engine_sharded_equals_single():
 def test_sharded_incidence_with_ns_and_short_reads(n_mesh):
     """The sharded incidence pass must stay exact through the jnp fallbacks:
     reads with N bases (nmask) and short reads (0 < P_i < w)."""
-    from hash10x_tpu.engine import Engine, EngineConfig
-    from hash10x_tpu.io import fqb as FB
-    from hash10x_tpu.io.sim import SimConfig, simulate
+    from hash10x_jax.engine import Engine, EngineConfig
+    from hash10x_jax.io import fqb as FB
+    from hash10x_jax.io.sim import SimConfig, simulate
     sim = simulate(SimConfig(genome_len=40_000, n_barcodes=12,
                              molecules_per_barcode=2, molecule_len=4000,
                              reads_per_molecule=24, read_len=100, seed=5))
@@ -289,7 +289,7 @@ def test_scan_stacked_equals_per_batch(n_mesh, mode_kw):
     got = step.scan_stacked(
         got, stack(codes, 0, codes.dtype, codes.shape[1]),
         stack(lengths, 0, np.int32), stack(bcs, -1, np.int32),
-        None, S, n_b, False)
+        None, S, n_b)
     got = step.finish(got)
     assert int(np.asarray(got.route_drops).sum()) == 0
     gh, gc = DS.gather_sorted_compact(got)
@@ -326,12 +326,12 @@ def test_force_routing_env_matches_specialized(monkeypatch):
 def test_lane_overflow_auto_retry_completes():
     """A pathologically skewed lane (identical reads -> every emission owned
     by ONE shard) overflows the expected-load auto-sized lanes; the engine
-    must recount with doubled lanes instead of aborting (VERDICT r4 item 7)
+    must recount with doubled lanes instead of aborting
     and end byte-identical to the plain single-device pass."""
-    from hash10x_tpu.engine import Engine, EngineConfig
-    from hash10x_tpu.io.fqb import Fqb
-    from hash10x_tpu.core.encode import pack_2bit
-    import hash10x_tpu.table.sorted_table as st
+    from hash10x_jax.engine import Engine, EngineConfig
+    from hash10x_jax.io.fqb import Fqb
+    from hash10x_jax.core.encode import pack_2bit
+    import hash10x_jax.table.sorted_table as st
 
     n, L = 2048, 120
     reads = np.zeros((n, L), np.uint8)        # poly-A: one canonical k-mer
@@ -340,7 +340,7 @@ def test_lane_overflow_auto_retry_completes():
               barcode_keys=np.zeros(1, np.uint32), read_len=L)
 
     def mk(shards):
-        # w=1: every position emits (no in-kernel compaction), so the one
+        # w=1: every position emits (no per-read compaction), so the one
         # value's owner receives per*P keys >> the 2E/n + 4096 auto lane
         return Engine(EngineConfig(spec=HashSpec(k=21, w=1, seed=17),
                                    count_mode="occurrences", table_bits=14,
@@ -355,7 +355,7 @@ def test_lane_overflow_auto_retry_completes():
     sharded = mk(8)
     sharded.timer.stage = lambda msg: stages.append(msg)  # capture retries
     sharded.count(fqb)
-    from hash10x_tpu.dist import sharded_sorted as DS
+    from hash10x_jax.dist import sharded_sorted as DS
     gh, gc = DS.gather_sorted_compact(sharded._dt)
     assert any("lane overflow" in s for s in stages), stages
     assert sharded.cfg.lane_capacity > 0   # the grown knob sticks

@@ -22,11 +22,11 @@ import io
 import jax.numpy as jnp
 import numpy as np
 
-from hash10x_tpu.hashspec import HashSpec, U64MAX
-from hash10x_tpu.engine import Engine, EngineConfig
-from hash10x_tpu.io.fqb import Fqb
-from hash10x_tpu.core.encode import pack_2bit
-from hash10x_tpu.table import sorted_table as st
+from hash10x_jax.hashspec import HashSpec, U64MAX
+from hash10x_jax.engine import Engine, EngineConfig
+from hash10x_jax.io.fqb import Fqb
+from hash10x_jax.core.encode import pack_2bit
+from hash10x_jax.table import sorted_table as st
 
 L = 150
 SPEC = HashSpec(k=21, w=11, seed=17)

@@ -12,11 +12,11 @@ import io
 import numpy as np
 import pytest
 
-from hash10x_tpu.hashspec import HashSpec
-from hash10x_tpu.engine import Engine, EngineConfig
-from hash10x_tpu.io.fqb import Fqb
-from hash10x_tpu.core.encode import pack_2bit
-from hash10x_tpu.oracle import seqhash_ref
+from hash10x_jax.hashspec import HashSpec
+from hash10x_jax.engine import Engine, EngineConfig
+from hash10x_jax.io.fqb import Fqb
+from hash10x_jax.core.encode import pack_2bit
+from hash10x_jax.oracle import seqhash_ref
 
 
 L = 80
@@ -83,9 +83,9 @@ def test_errorfix_droponly_matches_prune(rng):
 
 def test_errorfix_cli_flag(rng, tmp_path):
     """--errorFixReads wires through the CLI command language."""
-    from hash10x_tpu.cli.main import main
+    from hash10x_jax.cli.main import main
     fqb, gx, gy, gz = lane(rng)
-    from hash10x_tpu.io.fqb import save_fqb
+    from hash10x_jax.io.fqb import save_fqb
     p = tmp_path / "lane.fqb.npz"
     save_fqb(str(p), fqb)
     outs = {}

@@ -8,7 +8,7 @@ from pathlib import Path
 
 import pytest
 
-from hash10x_tpu.glibc_random import GlibcRandom
+from hash10x_jax.glibc_random import GlibcRandom
 
 _C_SRC = r"""
 #include <stdio.h>

@@ -4,10 +4,10 @@ import gzip
 
 import numpy as np
 
-from hash10x_tpu.core.encode import ascii_to_codes, codes_to_ascii
-from hash10x_tpu.io import fastq as FQ
-from hash10x_tpu.io import fqb as FB
-from hash10x_tpu.io.sim import SimConfig, simulate
+from hash10x_jax.core.encode import ascii_to_codes, codes_to_ascii
+from hash10x_jax.io import fastq as FQ
+from hash10x_jax.io import fqb as FB
+from hash10x_jax.io.sim import SimConfig, simulate
 
 
 def write_fastq(path, records):
@@ -109,7 +109,7 @@ def test_simulator_truth_consistency():
 def test_native_loader_matches_numpy(tmp_path):
     """The C loader's packed output must equal the numpy path exactly,
     including N-in-barcode invalidation and N-in-sequence packing."""
-    from hash10x_tpu.io import native_loader
+    from hash10x_jax.io import native_loader
     if not native_loader.available():
         import pytest
         pytest.skip("no C toolchain")
@@ -138,7 +138,7 @@ def test_native_loader_matches_numpy(tmp_path):
 
 
 def test_native_loader_malformed(tmp_path):
-    from hash10x_tpu.io import native_loader
+    from hash10x_jax.io import native_loader
     if not native_loader.available():
         import pytest
         pytest.skip("no C toolchain")
@@ -171,7 +171,7 @@ def test_paired_fastq_to_fqb(tmp_path):
     keys = fqb.barcode_keys[fqb.barcode_ids]
     assert (keys[:12] == keys[12:]).all()
     # R2 bases preserved
-    from hash10x_tpu.core.encode import codes_to_ascii
+    from hash10x_jax.core.encode import codes_to_ascii
     codes = fqb.codes()
     got = bytes(codes_to_ascii(codes[12][:fqb.lengths[12]]))
     assert got == r2[0][1].lower()

@@ -1,17 +1,17 @@
 """N-base validity must survive the packed (.fqb) round trip: k-mers spanning
 an N never count, and fqb-path counts equal text-path counts for the same reads
-(the ADVICE round-1 finding: packing N as 'a' minted k-mers that don't exist)."""
+(packing N as 'a' would mint k-mers that don't exist)."""
 
 import io as _io
 
 import numpy as np
 
-from hash10x_tpu.core import encode as E
-from hash10x_tpu.engine import Engine, EngineConfig
-from hash10x_tpu.hashspec import HashSpec
-from hash10x_tpu.io import fqb as FB
-from hash10x_tpu.io.fastq import ReadBatch
-from hash10x_tpu.oracle import seqhash_ref as SR
+from hash10x_jax.core import encode as E
+from hash10x_jax.engine import Engine, EngineConfig
+from hash10x_jax.hashspec import HashSpec
+from hash10x_jax.io import fqb as FB
+from hash10x_jax.io.fastq import ReadBatch
+from hash10x_jax.oracle import seqhash_ref as SR
 
 
 def test_nmask_pack_roundtrip(rng):
@@ -45,7 +45,7 @@ def _fastq_bytes(reads):
 
 
 def _counts(engine):
-    import hash10x_tpu.table.sorted_table as st
+    import hash10x_jax.table.sorted_table as st
     h, c = st.compact(engine._flushed())
     return dict(zip(h.tolist(), c.tolist()))
 
@@ -81,7 +81,7 @@ def test_fqb_counts_equal_text_counts_with_ns(rng, tmp_path):
 
 
 def test_native_loader_nmask_matches_numpy(rng, tmp_path):
-    from hash10x_tpu.io import native_loader
+    from hash10x_jax.io import native_loader
     if not native_loader.available():
         import pytest
         pytest.skip("no native toolchain")

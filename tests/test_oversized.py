@@ -7,11 +7,11 @@ import io as _io
 
 import numpy as np
 
-import hash10x_tpu.table.sorted_table as st
-from hash10x_tpu.engine import Engine, EngineConfig
-from hash10x_tpu.hashspec import HashSpec
-from hash10x_tpu.io import fqb as FB
-from hash10x_tpu.io.fastq import ReadBatch
+import hash10x_jax.table.sorted_table as st
+from hash10x_jax.engine import Engine, EngineConfig
+from hash10x_jax.hashspec import HashSpec
+from hash10x_jax.io import fqb as FB
+from hash10x_jax.io.fastq import ReadBatch
 
 
 def _lane(rng, n_big=600, n_small=40, read_len=60):
@@ -83,7 +83,7 @@ def test_oversized_full_pipeline_matches_large_batch(rng):
 
 def test_oversized_barcode_sharded_matches_single(rng):
     """A barcode with more reads than a batch must count exactly on the
-    SHARDED path too (VERDICT r02 item 6): the group dedups through a side
+    SHARDED path too: the group dedups through a side
     sharded table and merges shard-locally — bit-equal to single-device."""
     fqb = _lane(rng, n_big=300, n_small=20)
     spec = HashSpec(k=13, w=5)
@@ -102,7 +102,7 @@ def test_oversized_barcode_sharded_matches_single(rng):
 
 def test_split_report_match_oracle_formulation(rng):
     """Vectorized split/report vs the straightforward per-code construction."""
-    from hash10x_tpu.oracle import cluster_ref as CO
+    from hash10x_jax.oracle import cluster_ref as CO
     fqb = _lane(rng, n_big=100, n_small=25)
     spec = HashSpec(k=13, w=5)
     eng = Engine(EngineConfig(spec=spec, batch_reads=2048,

@@ -9,10 +9,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hash10x_tpu.hashspec import U64MAX
-from hash10x_tpu.table.incidence import (combined_key_bits,
+from hash10x_jax.hashspec import U64MAX
+from hash10x_jax.table.incidence import (combined_key_bits,
                                          finalize_combined_pairs, rank_join)
-from hash10x_tpu.utils.dense import device_dense_ranks, distinct_below
+from hash10x_jax.utils.dense import device_dense_ranks, distinct_below
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

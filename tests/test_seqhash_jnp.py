@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from hash10x_tpu.hashspec import HashSpec, U64MAX
-from hash10x_tpu.core import seqhash_jnp as J
-from hash10x_tpu.oracle import seqhash_ref as O
+from hash10x_jax.hashspec import HashSpec, U64MAX
+from hash10x_jax.core import seqhash_jnp as J
+from hash10x_jax.oracle import seqhash_ref as O
 
 from conftest import random_codes
 
@@ -75,7 +75,7 @@ def test_w1_minimizer_is_every_kmer(rng):
 
 
 def test_syncmer_mask_matches_oracle(rng):
-    from hash10x_tpu.oracle import seqhash_ref as O2
+    from hash10x_jax.oracle import seqhash_ref as O2
     spec = HashSpec(k=15, w=5, seed=17)
     codes, lengths = batch_of(rng, 6, 90, var_len=True)
     hashes, fwd, emit = J.sketch(spec, codes, lengths, mode="syncmer", syncmer_s=7)

@@ -10,9 +10,9 @@ import itertools
 import numpy as np
 import pytest
 
-from hash10x_tpu.hashspec import HashSpec, U64MAX
-from hash10x_tpu.core.encode import ascii_to_codes, revcomp_codes
-from hash10x_tpu.oracle import seqhash_ref as O
+from hash10x_jax.hashspec import HashSpec, U64MAX
+from hash10x_jax.core.encode import ascii_to_codes, revcomp_codes
+from hash10x_jax.oracle import seqhash_ref as O
 
 from conftest import random_codes
 

@@ -1,8 +1,7 @@
 """Shard-resident incidence (dist/sharded_inc.py): the code-range
 redistribution, the distributed transpose, and the device-built shift-join
 arrays must reproduce the host double-CSR build exactly — and the sharded
-cluster path over it must never materialize the host incidence
-(VERDICT r03 Missing #2)."""
+cluster path over it must never materialize the host incidence."""
 
 import numpy as np
 import pytest
@@ -10,10 +9,10 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from hash10x_tpu.hashspec import HashSpec, U64MAX
-from hash10x_tpu.dist import sharded_inc as SI
-from hash10x_tpu.dist import sharded_sorted as SS
-from hash10x_tpu.table.incidence import build_incidence
+from hash10x_jax.hashspec import HashSpec, U64MAX
+from hash10x_jax.dist import sharded_inc as SI
+from hash10x_jax.dist import sharded_sorted as SS
+from hash10x_jax.table.incidence import build_incidence
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -99,8 +98,8 @@ def test_inverted_positions(rng, n_dev):
 def test_cluster_over_sharded_incidence_matches(rng, n_dev):
     """cluster_codes_sparse_dist over a ShardedIncidence == over the host
     incidence == single-device sparse."""
-    from hash10x_tpu.cluster import sparse as SP
-    from hash10x_tpu.cluster import sparse_dist as SD
+    from hash10x_jax.cluster import sparse as SP
+    from hash10x_jax.cluster import sparse_dist as SD
     pairs, inc = random_pairs(rng, n_kmers=70, n_codes=28, density=0.18)
     mesh = mesh_of(n_dev)
     sh = SI.build_sharded_incidence(fake_low_sharded_table(pairs, mesh),
@@ -125,8 +124,8 @@ def test_label_blocks_over_sharded_incidence_stays_device(rng, n_dev, block):
     (block results written shard-resident, canonicalized shard-side — the
     host never assembles the O(n_pairs) label vector) and equal the
     single-device sparse labels exactly."""
-    from hash10x_tpu.cluster import sparse as SP
-    from hash10x_tpu.cluster import sparse_dist as SD
+    from hash10x_jax.cluster import sparse as SP
+    from hash10x_jax.cluster import sparse_dist as SD
     pairs, inc = random_pairs(rng, n_kmers=70, n_codes=28, density=0.18)
     mesh = mesh_of(n_dev)
     sh = SI.build_sharded_incidence(fake_low_sharded_table(pairs, mesh),
@@ -149,9 +148,9 @@ def test_engine_sharded_cluster_never_materializes_host_inc():
     """--codeClusters on the sharded path: the host incidence must stay
     unmaterialized through cluster(); report() then materializes lazily."""
     import io
-    from hash10x_tpu.engine import Engine, EngineConfig
-    from hash10x_tpu.io import fqb as FB
-    from hash10x_tpu.io.sim import SimConfig, simulate
+    from hash10x_jax.engine import Engine, EngineConfig
+    from hash10x_jax.io import fqb as FB
+    from hash10x_jax.io.sim import SimConfig, simulate
     sim = simulate(SimConfig(genome_len=50_000, n_barcodes=16,
                              molecules_per_barcode=2, molecule_len=4000,
                              reads_per_molecule=25, read_len=110, seed=9))
@@ -190,9 +189,9 @@ def test_engine_sharded_cluster_never_materializes_host_inc():
 
 
 def _lane_engines():
-    from hash10x_tpu.engine import Engine, EngineConfig
-    from hash10x_tpu.io import fqb as FB
-    from hash10x_tpu.io.sim import SimConfig, simulate
+    from hash10x_jax.engine import Engine, EngineConfig
+    from hash10x_jax.io import fqb as FB
+    from hash10x_jax.io.sim import SimConfig, simulate
     sim = simulate(SimConfig(genome_len=50_000, n_barcodes=16,
                              molecules_per_barcode=2, molecule_len=4000,
                              reads_per_molecule=25, read_len=110, seed=9))

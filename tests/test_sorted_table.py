@@ -4,8 +4,8 @@ merge (checkpoint) semantics."""
 import numpy as np
 import pytest
 
-from hash10x_tpu.hashspec import U64MAX
-from hash10x_tpu.table import sorted_table as ST
+from hash10x_jax.hashspec import U64MAX
+from hash10x_jax.table import sorted_table as ST
 
 
 def table_dict(t):

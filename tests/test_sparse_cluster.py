@@ -5,10 +5,10 @@ tally (barcode_shares) — SURVEY.md §5 item 2, §8.3 deterministic clustering.
 import numpy as np
 import pytest
 
-from hash10x_tpu.cluster import sparse as SP
-from hash10x_tpu.cluster import cooccur
-from hash10x_tpu.oracle import cluster_ref as CO
-from hash10x_tpu.table.incidence import build_incidence
+from hash10x_jax.cluster import sparse as SP
+from hash10x_jax.cluster import cooccur
+from hash10x_jax.oracle import cluster_ref as CO
+from hash10x_jax.table.incidence import build_incidence
 
 
 def random_incidence(rng, n_kmers=60, n_codes=30, density=0.15):
@@ -94,9 +94,9 @@ def test_sparse_chunk_boundaries(rng):
 
 def test_blocked_propagate_matches_monolithic(rng, monkeypatch):
     """The blocked propagate fallback (engaged past _EDGE_BLOCK edges; bounds
-    per-dispatch memory on dense lanes that crashed the TPU worker) must be
+    per-dispatch memory on dense lanes) must be
     label-identical to the monolithic while_loop path."""
-    from hash10x_tpu.cluster import sparse as SP
+    from hash10x_jax.cluster import sparse as SP
     inc = random_incidence(rng, n_kmers=400, n_codes=120, density=0.2)
     want = SP.cluster_codes_sparse(inc, min_friend_share=4, flat=True)
     monkeypatch.setattr(SP, "_EDGE_BLOCK", 1 << 10)

@@ -8,9 +8,9 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from hash10x_tpu.cluster import sparse as SP
-from hash10x_tpu.cluster import sparse_dist as SD
-from hash10x_tpu.table.incidence import build_incidence
+from hash10x_jax.cluster import sparse as SP
+from hash10x_jax.cluster import sparse_dist as SD
+from hash10x_jax.table.incidence import build_incidence
 
 
 def mesh_of(n):

@@ -4,10 +4,10 @@ overflow accounting (SURVEY.md §5 items 2/4)."""
 import numpy as np
 import pytest
 
-from hash10x_tpu.hashspec import HashSpec, U64MAX
-from hash10x_tpu.core import seqhash_jnp as J
-from hash10x_tpu.oracle import table_ref as TO
-from hash10x_tpu.table import oa_table as T
+from hash10x_jax.hashspec import HashSpec, U64MAX
+from hash10x_jax.core import seqhash_jnp as J
+from hash10x_jax.oracle import table_ref as TO
+from hash10x_jax.table import oa_table as T
 
 from conftest import random_codes
 
